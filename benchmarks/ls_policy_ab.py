@@ -1,8 +1,8 @@
 """A/B: line-search warm-start growth after a backtracked accept
 (config.ls_grow_backtracked 2.0 vs 1.0 — the HOLD policy), on CPU float64.
 
-Gate for flipping the Fitter default (repo precedent: PRECISION.md — speed
-knobs that can move regret need a regret validation before becoming default).
+Gate for flipping the Fitter default (speed knobs that can move regret need a
+regret validation before becoming default).
 The knob only affects the FIT line search, so CPU f64 regret captures its
 effect; functions = the regret-sensitive subset of the parity suite.
 
@@ -22,7 +22,8 @@ CHILD = r"""
 import sys, json, os
 sys.path.insert(0, {root!r})
 import jax
-jax.config.update("jax_compilation_cache_dir", {root!r} + "/.jax_cache")
+from gaussian_process_optimization_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import numpy as np

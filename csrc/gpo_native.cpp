@@ -1,7 +1,7 @@
 // Native host-side engine for gaussian_process_optimization_tpu.
 //
 // The reference vendors native code for its hot loops (Cython/OpenMP in GPy).
-// On TPU the numerics live in XLA/Pallas; what remains host-bound is the
+// The numerics live in XLA on the device; what remains host-bound is the
 // experiment-design generation — the maximin Latin-hypercube search loops
 // (GPyOpt experiment_design/latin_mixed_design.py:9: candidate generation,
 // min-pairwise-distance scoring, discrete stratification with representation

@@ -2,9 +2,10 @@
 surrogate's multi-restart L-BFGS fits and both acquisition phases (candidate
 sweep + anchor polish) — sharded over a jax.sharding.Mesh.
 
-On a TPU pod slice this is `make_mesh()` over the real chips; here it runs on
-a virtual CPU mesh so the SPMD program is exercised anywhere (the same trick
-tests/conftest.py uses). The reference runs restarts and anchors as serial
+On a machine with several GPUs this is `make_mesh()` over the real cards
+(`python chip_smoke.py --chips 4` runs the mesh path on four); without them it
+runs on a virtual 8-device CPU mesh, so the SPMD program is exercised anywhere
+(the same trick tests/conftest.py uses). The reference runs restarts and anchors as serial
 Python loops (paramz optimize_restarts; GPyOpt acquisition_optimizer.py) — on a
 mesh they are embarrassingly parallel, so the collective cost is one small
 gather per phase.
@@ -18,7 +19,7 @@ import jax
 
 # Request 8 virtual CPU devices BEFORE any backend query — jax.default_backend()
 # would initialize the backend and make this a silent no-op (1-device "mesh").
-# Harmless on TPU environments: it only sizes the cpu backend.
+# Harmless on GPU machines: it only sizes the cpu backend.
 try:
     jax.config.update("jax_num_cpu_devices", 8)
 except Exception:

@@ -1,5 +1,5 @@
-"""gaussian_process_optimization_tpu — a TPU-native Gaussian-process / Bayesian-optimization
-framework (JAX / XLA / Pallas / pjit).
+"""gaussian_process_optimization_tpu — a Gaussian-process / Bayesian-optimization
+framework on JAX / XLA (jit, vmap, shard_map).
 
 Brand-new rebuild of the capabilities of the GPy 1.9.6 + GPyOpt 1.2.5 stack vendored in
 the reference project (see SURVEY.md): exact and sparse GP regression, the stationary
@@ -15,21 +15,15 @@ import os as _os
 import jax as _jax
 
 # GP numerics are cancellation-heavy (distance trick, collapsed bounds, LML terms).
-# On TPU the MXU computes f32 matmuls with bfloat16 operands by default (~3 decimal
-# digits), which corrupts Gram matrices badly enough to make them non-PSD. A GP
-# library must default to full-precision matmuls.
-#
-# 'highest' (6-pass f32) is the default. 'high' (bf16x3) was measured to match
-# 'highest' to 6 significant digits on the N=4096 LML value+grad and cut the fit
-# ~16% — but Hartmann6 BO regret DEGRADED under it (seeds at 1.4/1.1 regret vs a
-# worst case of 0.5 under 'highest'; the EI/posterior path is sensitive beyond
-# what per-point LML accuracy shows), so it is opt-in via
-# GPO_TPU_MATMUL_PRECISION=high, not the default.
-if not _os.environ.get("GPO_TPU_FAST_MATMUL"):
-    _jax.config.update(
-        "jax_default_matmul_precision",
-        _os.environ.get("GPO_TPU_MATMUL_PRECISION", "highest"),
-    )
+# On an NVIDIA GPU, XLA's default float32 matmul precision lets cuBLAS run TF32
+# tensor-core products (10-bit mantissa, ~3 decimal digits), which corrupts Gram
+# matrices badly enough to make them non-PSD. A GP library must default to
+# full-precision matmuls, so 'highest' (IEEE float32) is pinned here.
+# GPO_MATMUL_PRECISION overrides it (e.g. 'high' for TF32) for experiments.
+_jax.config.update(
+    "jax_default_matmul_precision",
+    _os.environ.get("GPO_MATMUL_PRECISION", "highest"),
+)
 
 from . import config as _config  # noqa: F401
 from .config import config  # noqa: F401

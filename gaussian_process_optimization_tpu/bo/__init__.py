@@ -1,4 +1,4 @@
-"""Bayesian-optimization stack — TPU-native rebuild of GPyOpt."""
+"""Bayesian-optimization stack — JAX rebuild of GPyOpt."""
 from .acquisitions import (
     AcquisitionBase,
     AcquisitionEI,

@@ -6,7 +6,7 @@ Two faces per acquisition:
   (base.py:33), ``acquisition_function_withGradients`` (:42), ``optimize`` (:52);
 - a pure jnp core ``pure_neg_acq(gp, posterior, fmin, state, X) -> (n,)`` in
   minimize-convention, used by the acquisition optimizer to run the 1000-candidate
-  sweep and the multi-start L-BFGS as ONE jitted vmapped TPU program (the reference
+  sweep and the multi-start L-BFGS as ONE jitted vmapped device program (the reference
   evaluates these point-batches through Python/GPy on CPU).
 
 Quantile math matches GPyOpt util/general.py:113 get_quantiles: s floored at 1e-10,

@@ -1,7 +1,7 @@
 """MCMC-integrated acquisitions (GPyOpt/GPyOpt/acquisitions/{EI,MPI,LCB}_mcmc.py):
 the acquisition averaged over the HMC hyperparameter samples (EI_mcmc.py:29).
 
-TPU-first: the per-sample loop is a vmap over the stacked sample-models pytree;
+Accelerator-first: the per-sample loop is a vmap over the stacked sample-models pytree;
 the whole integrated acquisition stays one jittable pure core, so the sweep and
 multi-start run exactly like the non-MCMC path.
 """

@@ -7,7 +7,7 @@ a failed fit (Cholesky failure even after the jitter ladder) *breaks* the loop r
 than crashing (bo.py:134-137).
 
 The loop itself is host-side Python (the objective is an external system), but every
-numeric step inside — fit, sweep, multistart, LP penalization — is a jitted TPU
+numeric step inside — fit, sweep, multistart, LP penalization — is a jitted device
 program via the model wrapper / acquisition optimizer. Padded-bucket buffers keep
 those programs compiled-once as N grows.
 """
@@ -221,8 +221,8 @@ class BO:
         with open(report_file, "w") as f:
             import gaussian_process_optimization_tpu as pkg
 
-            f.write("-----------------------------" + " GPO-TPU Report file " + "-----------------------------------\n")
-            f.write(f"GPO-TPU Version {pkg.__version__}\n")
+            f.write("-----------------------------" + " GPO Report file " + "-----------------------------------\n")
+            f.write(f"GPO Version {pkg.__version__}\n")
             f.write(f"Date and time: {time.strftime('%c')}\n")
             f.write(f"Optimization completed: {'YES' if self.X.shape[0] >= getattr(self, 'initial_iter', 0) else 'NO'}\n")
             f.write(f"Number initial samples: {getattr(self, 'initial_design_numdata', '-')}\n")

@@ -8,7 +8,7 @@ entropy of p_min after an observation at the candidate.
 
 Two implementations are provided:
 
-- ``AcquisitionEntropySearch`` — TPU-native MONTE CARLO redesign: p_min is an argmin
+- ``AcquisitionEntropySearch`` — JAX-native MONTE CARLO redesign: p_min is an argmin
   count over S joint GP samples (three batched matmuls, vmaps cleanly) and candidates
   are scored by expected entropy reduction over exact rank-1 fantasy updates with
   common random numbers. Same decision quantity, sampling estimator.

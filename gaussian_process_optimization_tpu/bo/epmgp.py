@@ -7,7 +7,7 @@ a joint Gaussian belief N(mu, Sigma): for every k it runs EP over the D-1 linear
 truncation factors 1[f_k <= f_l] (``min_faktor`` / ``lt_factor`` in the reference,
 epmgp.py:124-287) and normalizes across k.
 
-TPU-native structure: the per-k EP is a ``lax.while_loop`` of ``lax.fori_loop``
+JAX-native structure: the per-k EP is a ``lax.while_loop`` of ``lax.fori_loop``
 rank-1 sweeps (inherently sequential, matching the reference), but all D factor
 problems run batched under ``vmap`` — one jitted program instead of a Python loop
 of 50xD numpy iterations. All reference branch points (z < -6 failure, z > 6

@@ -1,5 +1,5 @@
 """Affine-invariant ensemble sampler (Goodman & Weare stretch moves) —
-TPU-native rebuild of GPyOpt's emcee-backed ``util/mcmc_sampler.py:31``
+JAX rebuild of GPyOpt's emcee-backed ``util/mcmc_sampler.py:31``
 ``AffineInvariantEnsembleSampler`` (used by Entropy Search to draw representer
 points from an acquisition-proportional density, acquisitions/ES.py:11).
 

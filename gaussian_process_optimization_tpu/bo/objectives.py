@@ -3,7 +3,7 @@ forrester:22; experiments2d.py branin:174 (fmin=0.397887, :201), rosenbrock:48,
 beale:79, dropwave:110, cosines:141, sixhumpcamel:259, goldstein:219,
 mccormick:296, powers:333, eggholder:365; experimentsNd.py
 alpine1:7, alpine2:39, gSobol:69, ackley:101). Hartmann6 is NOT in the reference — implemented from
-the standard definition (BASELINE.md note) for config-2/regret comparisons.
+the standard definition for the regret comparisons.
 
 All are pure jnp functions of (n, d) arrays returning (n, 1) — usable both as host
 objectives and inside jitted/vmapped sweeps. Standard domains and minima attached.
@@ -233,8 +233,8 @@ _H6_P = 1e-4 * np.array(
 
 
 def hartmann6(x):
-    """Hartmann-6 on [0,1]^6 (standard definition; not in the reference, see
-    BASELINE.md); fmin = -3.32237."""
+    """Hartmann-6 on [0,1]^6 (standard definition; not in the reference);
+    fmin = -3.32237."""
     x = jnp.atleast_2d(x)
     A = jnp.asarray(_H6_A, dtype=x.dtype)
     P = jnp.asarray(_H6_P, dtype=x.dtype)

@@ -6,7 +6,7 @@ Reference flow: 1000-candidate sweep -> top-5 anchors -> per-anchor scipy L-BFGS
 round to the mixed space -> re-evaluate at the rounded point -> min (all serial Python
 on CPU).
 
-TPU-native flow (same decisions, batched): the candidate sweep is one jitted vmapped
+JAX-native flow (same decisions, batched): the candidate sweep is one jitted vmapped
 program; the 5 anchor L-BFGS runs are ONE vmapped jitted L-BFGS program with box
 bounds; context variables are handled by collapsing their box bounds to a point
 (equivalent to GPyOpt's reduced-space OptimizationWithContext wrapper, optimizer.py:171).

@@ -1,4 +1,4 @@
-"""Kernel (covariance function) zoo — TPU-native rebuild of GPy/GPy/kern."""
+"""Kernel (covariance function) zoo — JAX rebuild of GPy/GPy/kern."""
 from .base import Add, Kernel, Prod
 from .gower import Gower
 from .linear import Linear, LinearFull

@@ -1,6 +1,6 @@
 """Kernel (covariance function) base classes.
 
-TPU-native rebuild of the GPy kernel contract (``GPy/GPy/kern/src/kern.py:12``):
+Rebuild of the GPy kernel contract (``GPy/GPy/kern/src/kern.py:12``):
 ``K``, ``Kdiag``, plus ``Add``/``Prod`` combination algebra (``add.py:10``, ``prod.py:24``)
 and ``active_dims`` input slicing (``kernel_slice_operations.py``).
 
@@ -8,7 +8,7 @@ Design differences from the reference (functional, autodiff-first):
 - Kernels are immutable pytree dataclasses; hyperparameters are array leaves, so
   ``jax.grad`` replaces the hand-written ``update_gradients_full``/``gradients_X``
   plumbing (and their Cython/OpenMP hot loops ``stationary_cython.pyx`` /
-  ``stationary_utils.c`` — on TPU those contractions are einsums on the MXU).
+  ``stationary_utils.c`` — those contractions become XLA matmuls/reductions).
 - No caching layer (paramz ``Cache_this``): under ``jit`` XLA CSE merges repeated
   subexpressions.
 """

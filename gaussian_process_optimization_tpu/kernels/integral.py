@@ -8,7 +8,7 @@ F(t) = int_0^t f(s) ds.
 - Kdiag(X)    -> k_ff diag (integral.py:76-83's hack, kept for API parity)
 
 The reference computes every entry in a Python double loop; here the closed
-forms evaluate on full (N, M) grids (VPU elementwise + erf). 1-D inputs.
+forms evaluate on full (N, M) grids (elementwise + erf). 1-D inputs.
 tests/test_periodic_rkhs.py checks k_xx/k_xf against numerical quadrature of
 k_ff and gradient-consistency through the LML.
 """

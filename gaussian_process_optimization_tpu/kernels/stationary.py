@@ -4,11 +4,10 @@ Rebuild of ``GPy/GPy/kern/src/stationary.py`` (Stationary:23, _unscaled_dist:155
 _scaled_dist:176, subclasses Exponential:384, OU:427, Matern32:447, Matern52:546,
 ExpQuad:613, Cosine:654, RatQuad:665) and ``rbf.py:12``.
 
-TPU notes:
+Notes:
 - the pairwise distance uses the -2*X@X2^T + |X|^2 + |X2|^2 trick (GPy
-  stationary.py:155-173) so the O(N^2 D) work is a single MXU matmul; elementwise
-  K_of_r fuses into the matmul output under XLA. A fused Pallas tile kernel is
-  available for the hot families (ops/pallas_kernels.py) behind config.use_pallas.
+  stationary.py:155-173) so the O(N^2 D) work is a single matmul; elementwise
+  K_of_r fuses into the matmul output under XLA.
 - gradients come from autodiff; the reference's hand-written OpenMP loops
   (stationary_utils.c _grad_X / _lengthscale_grads) are mathematically plain
   contractions which XLA emits as matmuls.
@@ -26,11 +25,10 @@ from .base import Kernel
 def _dist_matmul(A, B):
     """Full-precision cross term for the distance trick.
 
-    CRITICAL on TPU: the MXU computes f32 matmuls with bfloat16 inputs by default
-    (~3 decimal digits). For coordinates of magnitude ~10 that corrupts the
-    -2*X@X2^T cross term by O(1), making K badly non-PSD (observed: eigenvalue
-    -0.23 on Branin-scale inputs). Precision.HIGHEST forces full f32 via multi-pass
-    bf16 — still MXU-bound, ~6 passes.
+    CRITICAL: reduced-precision matmul operands (TF32 on a GPU keeps a 10-bit
+    mantissa, ~3 decimal digits) corrupt the -2*X@X2^T cross term by O(1) for
+    coordinates of magnitude ~10, making K badly non-PSD (observed: eigenvalue
+    -0.23 on Branin-scale inputs). Precision.HIGHEST forces IEEE float32.
     """
     from jax import lax
 
@@ -169,20 +167,14 @@ class Stationary(Kernel):
         return jnp.zeros((D, D), dtype=vec.dtype).at[idx, idx].set(vec)
 
     def K(self, X, X2=None):
+        import jax
+
         X = self._slice(X)
         X2 = self._slice(X2)
-        from ..config import pallas_enabled
-        from ..ops import pallas_kernels
-
-        # supports() itself admits interpret mode (config.pallas_interpret), so
-        # gate on it alone — the extra pallas_enabled() here silently disabled
-        # CPU interpret-mode testing of the real kernels
-        if pallas_kernels.supports(self, X, X2):
-            return pallas_kernels.stationary_K(self, X, X2)
-        if self.K_of_r2 is not None:
-            return self.K_of_r2(self._scaled_dist2(X, X2))
-        r = self._scaled_dist(X, X2)
-        return self.K_of_r(r)
+        with jax.named_scope("k_build"):  # profiler attribution (fit_trace.py)
+            if self.K_of_r2 is not None:
+                return self.K_of_r2(self._scaled_dist2(X, X2))
+            return self.K_of_r(self._scaled_dist(X, X2))
 
     def Kdiag(self, X):
         X = self._slice(X)

@@ -5,7 +5,7 @@ hand-assembles symbolic derivatives for update_gradients_full/gradients_X
 (symbolic.py:48-75); the whole class is gated on `import sympy` (absent in
 this environment, as upstream allows).
 
-TPU-native replacement: the expression is any JAX-traceable python callable
+JAX-native replacement: the expression is any JAX-traceable python callable
 ``k(x, z, params) -> scalar`` over single points — jax.grad IS the symbolic
 differentiation engine, so the sympy dependency disappears while keeping the
 same capability (user-defined covariance with exact derivatives). When sympy

@@ -1,4 +1,4 @@
-"""Model zoo — TPU-native rebuild of GPy models + GPyOpt surrogate wrappers."""
+"""Model zoo — JAX rebuild of GPy models + GPyOpt surrogate wrappers."""
 from .bo_models import BOModel, GPModel
 from .gp import GPRegression, Posterior
 from .sparse import SparseGPRegression, SparsePosterior

@@ -7,11 +7,11 @@ updates (sequential, ``posteriorParams._update_rank1``) or parallel site updates
 heteroscedastic VarDTC collapsed bound (``var_dtc.py`` `precision=` path) plus the
 ``log_Z_tilde`` correction.
 
-TPU-native structure:
+JAX-native structure:
 - moment matching is vectorized through ``Likelihood.moments_match_ep`` (exact for
   probit/Gaussian, Gauss-Hermite in log space otherwise);
 - the PARALLEL mode (default) refreshes all sites per sweep from one Cholesky —
-  each sweep is a few batched O(n^3)/O(nm^2) ops on the MXU;
+  each sweep is a few batched O(n^3)/O(nm^2) ops;
 - the SEQUENTIAL mode replicates the reference's site-by-site rank-1 updates
   (GPy ``_local_updates`` :337 with ``_update_rank1`` :103) as a ``lax.fori_loop``
   with a deterministic 0..n-1 order (the reference permutes randomly; both converge
@@ -98,7 +98,7 @@ def _site_deltas(lik, y, tau, nu, mu_post, sigma2_post, eta, delta):
 
 def ep_inference(K, y, lik, mode="parallel", eta=1.0, delta=None, max_sweeps=50,
                  epsilon=1e-6):
-    """Dense EP (GPy EP.inference :253). mode 'parallel' (TPU-native, damped,
+    """Dense EP (GPy EP.inference :253). mode 'parallel' (JAX-native, damped,
     default delta=0.5) or 'sequential' (reference parity: rank-1 posterior updates
     per site, default delta=1.0 as in EPBase)."""
     K = jnp.asarray(K)

@@ -3,7 +3,7 @@ likelihood.
 
 Rebuild of the paramz optimize/optimize_restarts harness as used by the reference
 (GPy core/gp.py:643 -> paramz Model.optimize -> scipy lbfgsb; GPyOpt gpmodel.py:88-93
-runs optimize_restarts(5, 'bfgs', max_iters=1000)). Differences, TPU-first:
+runs optimize_restarts(5, 'bfgs', max_iters=1000)). Differences, accelerator-first:
 
 - the objective is -(LML + log prior) with gradients by autodiff through the whole
   inference (kernel build, jitter-ladder Cholesky, solves) — replacing the hand-written
@@ -102,12 +102,11 @@ class Fitter:
         # BO wrappers already apply ACROSS refits (bo_models.updateModel, which
         # re-verifies minimality at the posterior factorization), with one-
         # trial-ago freshness. OPT-IN (GPO_THREAD_LADDER=1), default OFF: the
-        # round-5 TPU A/B (benchmarks/prof_thread_ladder.py, BASELINE.md) shows
-        # the bench fit's accepted trials never leave rung 0 — ladder cost hides
+        # bench fit's accepted trials never leave rung 0 — ladder cost hides
         # in REJECTED exploratory trials, which threading cannot help — and the
-        # threaded program ran ~4% slower. It wins only on workloads whose
-        # ACCEPTED path climbs (exact_feval Gower first-fits); exact
-        # GPRegression only (its LML is inference().lml and it carries the
+        # threaded program ran slower in an earlier A/B. It wins only on
+        # workloads whose ACCEPTED path climbs (exact_feval Gower first-fits);
+        # exact GPRegression only (its LML is inference().lml and it carries the
         # hint fields).
         if thread_ladder is None:
             import os
@@ -153,12 +152,10 @@ class Fitter:
                 # halvings freezes (the scipy-lbfgsb ABNORMAL_TERMINATION
                 # analog, optimizer.py:54-56) instead of gating the batch.
                 # nonmonotone_eta: Zhang-Hager acceptance cuts the backtrack
-                # tail that the vmapped restart batch pays at max-over-lanes
-                # (the round-3 ~20 ms/step line-search overhead, BASELINE.md).
+                # tail that the vmapped restart batch pays at max-over-lanes.
                 # OPT-IN (default 0 = monotone): a 6-seed CPU-f64 A/B showed
                 # eta=0.5 degrading Hartmann6 median regret 0.064->0.099 and
-                # one alpine1 seed 0.018->0.59 — same verdict as the global
-                # bf16x3 matmul knob (CLAUDE.md): speed knobs that move regret
+                # one alpine1 seed 0.018->0.59: speed knobs that move regret
                 # stay opt-in.
                 if aux0 is not None:
                     return lbfgs.minimize(

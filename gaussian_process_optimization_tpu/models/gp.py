@@ -1,6 +1,6 @@
 """Exact GP regression — the centerpiece.
 
-TPU-native rebuild of GPy's exact inference and posterior algebra:
+JAX rebuild of GPy's exact inference and posterior algebra:
 - ``GPy/GPy/inference/latent_function_inference/exact_gaussian_inference.py:37``:
   Ky = K + (sigma^2 + 1e-8) I;  L = jitchol(Ky);  alpha = Ky^-1 Yc;
   logL = 0.5(-ND log 2pi - D logdet - sum(alpha*Yc)).
@@ -11,7 +11,7 @@ TPU-native rebuild of GPy's exact inference and posterior algebra:
 - ``GPy/GPy/models/gp_regression.py:9``: GPRegression = GP + Gaussian likelihood +
   default RBF kernel.
 
-Design differences (TPU-first):
+Design differences (accelerator-first):
 - the model is an immutable pytree; ``jax.grad`` of :func:`log_marginal_likelihood`
   replaces the hand-plumbed dL_dK -> update_gradients_full machinery (and its
   OpenMP/Cython hot loops).
@@ -76,8 +76,8 @@ def _exact_core(Ky, Yc, k_hint, greedy=False):
     NON-DIFFERENTIABLE (their cotangents are dropped — they feed predict paths that
     never differentiate w.r.t. them, matching GPy's posterior semantics).
 
-    TPU cost shaping: a 1-rhs triangular solve is LATENCY-bound (~16 ms at N=4096 —
-    as much as the whole Gram build), so the LML is computed from the single
+    Cost shaping: a 1-rhs triangular solve is LATENCY-bound (a sequential sweep
+    per lane), so the LML is computed from the single
     half-solve t = L^-1 Yc (quad = ||t||^2 = Yc^T Ky^-1 Yc); `alpha` is derived
     lazily (XLA dead-code-eliminates its second solve whenever the caller only
     consumes the LML, i.e. every fit/line-search step) and the backward pass
@@ -161,9 +161,9 @@ class Posterior:
     """Woodbury representation of the exact posterior (GPy posterior.py:9).
 
     `Li` (= L^-1, optional) trades one N-rhs triangular solve at posterior-build
-    time for MATMUL-only predictive variances afterwards: a TPU triangular solve
+    time for MATMUL-only predictive variances afterwards: a triangular solve
     is a sequential blocked algorithm (latency-bound for the thin right-hand
-    sides of acquisition optimization), while Li @ Kx rides the MXU. Build it
+    sides of acquisition optimization), while Li @ Kx is one matmul. Build it
     with `GPRegression.inference(precompute_inverse=True)` for predict-heavy
     phases (the acquisition argmax). Mirrors GPy's lazy `woodbury_inv`."""
 
@@ -396,7 +396,7 @@ class GPRegression:
         mu = Kx.T @ post.alpha
         if self.mean_function is not None:
             mu = mu + self.mean_function.f(Xnew)
-        # matmul path when L^-1 was precomputed (MXU-friendly; see Posterior.Li)
+        # matmul path when L^-1 was precomputed (see Posterior.Li)
         tmp = post.Li @ Kx if post.Li is not None else linalg.solve_lower(post.L, Kx)
         if full_cov:
             var = self.kern.K(Xnew) - tmp.T @ tmp

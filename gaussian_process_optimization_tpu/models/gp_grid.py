@@ -6,8 +6,8 @@ a Cartesian grid X = X_1 x ... x X_D with a product kernel make
 K = K_1 (x) ... (x) K_D; eigendecomposition per factor gives exact O(sum n_i^3)
 inference instead of O((prod n_i)^3).
 
-TPU notes: per-factor ``eigh`` + a chain of axis-wise tensordots (kron matvec) — all
-MXU matmuls; no giant Gram matrix is ever materialized.
+Notes: per-factor ``eigh`` + a chain of axis-wise tensordots (kron matvec) — all
+matmuls; no giant Gram matrix is ever materialized.
 """
 from __future__ import annotations
 

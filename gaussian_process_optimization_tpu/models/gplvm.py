@@ -8,8 +8,8 @@ GPy/GPy/kern/src/psi_comp/).
   statistics (PSICOMP_RBF: psi0 = N sigma^2; psi1/psi2 Gaussian expectations) and
   the uncertain-input VarDTC collapsed bound (Titsias & Lawrence 2010).
 
-TPU notes: psi1/psi2 are dense (N, M)/(M, M) tensors built from elementwise ops and
-one big contraction — MXU/VPU friendly; the bound reuses the sparse Lm/LB
+Notes: psi1/psi2 are dense (N, M)/(M, M) tensors built from elementwise ops and
+one big contraction — matmul/elementwise friendly; the bound reuses the sparse Lm/LB
 factorization of models/sparse.py.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ the *unconstrained* optimizer space (the packed vector of utils/packing, the ana
 of paramz's optimizer_array) with identity mass matrix and Metropolis acceptance
 (sample:31, _update:62, _computeH:68).
 
-TPU-first: the whole chain is ONE jitted ``lax.scan`` (leapfrog inner loop is a
+Accelerator-first: the whole chain is ONE jitted ``lax.scan`` (leapfrog inner loop is a
 ``fori_loop``); gradients of the potential come from autodiff through the GP
 inference instead of the reference's hand-plumbed _transform_gradients.
 """
@@ -80,7 +80,7 @@ def metropolis_hastings(
     ``logpost_fn(u) -> scalar`` is the log posterior (LML + log prior) over the packed
     unconstrained vector — the analog of ``model.log_likelihood() + model.log_prior()``.
 
-    TPU-first: each tuning window is ONE jitted ``lax.scan`` of ``tune_interval`` MH
+    Accelerator-first: each tuning window is ONE jitted ``lax.scan`` of ``tune_interval`` MH
     steps (compiled once, reused across windows — the host only touches the small
     (D, D) covariance between windows). Deviation from the reference, documented: the
     reference's tuning guard (samplers.py:65) mixes bitwise ``&`` with modulo and
@@ -186,7 +186,7 @@ def hmc_shortcut_sample(
     Finish with the standard Metropolis accept against H at the start (identity mass
     matrix, so the reference's log det(M) terms vanish, hmc.py:172-173).
 
-    TPU-first: the whole chain is one jitted ``lax.scan``; the per-sample trajectory
+    Accelerator-first: the whole chain is one jitted ``lax.scan``; the per-sample trajectory
     is a ``lax.while_loop`` over a fixed (2*leapfrog_steps+1)-slot buffer with
     branchless selects for the reversal bookkeeping.
 

@@ -20,7 +20,7 @@ q(Z), ibp_lfm.py:27-99 gatherPsiStat):
 plus E_q[log p(Z, pi)] + H[q] (ibp_lfm.py:426-450 — the reference *adds* this
 'KL_divergence', which is -KL(q||p); same here).
 
-TPU-first: the reference's per-output python loop + minibatch/MPI machinery
+Accelerator-first: the reference's per-output python loop + minibatch/MPI machinery
 become one-hot einsums inside a single jitted ELBO; all gradients (gamma, tau,
 kernel, Z, noise) by autodiff, replacing update_gradients (ibp_lfm.py:290-377).
 """

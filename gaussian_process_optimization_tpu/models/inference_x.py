@@ -7,7 +7,7 @@ space each new row lives, holding the trained posterior fixed. Point models
 (GPLVM = GPRegression with trainable X) get a point estimate X*; Bayesian
 GPLVM gets a variational posterior q(x*) = N(mu*, diag(S*)).
 
-TPU-first design. The reference builds a throwaway paramz Model and runs one
+Accelerator-first design. The reference builds a throwaway paramz Model and runs one
 scipy L-BFGS on the SUMMED objective (inferenceX.py:23-26). But the psi-space
 objective decomposes over new rows, so here every row is an INDEPENDENT small
 optimization and we vmap ONE jitted L-BFGS over all rows — N* Q-dim chains in
@@ -130,7 +130,7 @@ def _infer_newX_point(model, Y_new, optimize, init, maxiter, key):
     X0 = jnp.asarray(np.asarray(X_train)[idx])
 
     # Li precomputed once -> every vmapped L-BFGS objective eval predicts via
-    # MXU matmuls instead of a latency-bound (N,N) triangular solve per trial
+    # matmuls instead of a latency-bound (N,N) triangular solve per trial
     post = model.inference(precompute_inverse=True)
     sigma2 = model.likelihood_variance
     if sigma2.ndim > 0:  # heteroscedastic train noise: scalar test analog

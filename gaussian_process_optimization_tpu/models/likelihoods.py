@@ -679,7 +679,7 @@ class MultioutputLikelihood(Likelihood):
     models: row n uses ``likelihoods[output_index[n]]``.
 
     The reference dispatches per-row through ``Y_metadata['output_index']`` with
-    boolean-mask numpy loops (multioutput_likelihood.py:79-130). TPU-native
+    boolean-mask numpy loops (multioutput_likelihood.py:79-130). JAX-native
     design: every sub-likelihood is evaluated on the FULL (N, ...) arrays (they
     are cheap elementwise ops) and rows are combined with a branchless
     ``jnp.where`` select — no data-dependent control flow, jit/vmap-safe.

@@ -8,7 +8,7 @@ optimizes 200 iters, perturbs params by x(1 + 0.01 eps), runs HMC for
 burnin + n*interval steps (step 0.1, 20 leapfrog) and keeps every `interval`-th
 sample after burn-in; predict/get_fmin loop over the samples.
 
-TPU-first: the hyperparameter samples live as a STACKED model pytree (leading
+Accelerator-first: the hyperparameter samples live as a STACKED model pytree (leading
 sample axis on parameter leaves), so the reference's per-sample Python loop is a
 `vmap` — predictions over S samples are one batched program.
 """

@@ -11,7 +11,7 @@ posterior). Shared vs private latent dimensions emerge through the per-view ARD
 inverse lengthscales — a dimension relevant to every view is shared; one with
 weight in a single view is private (the 'relevance determination').
 
-TPU structure: the per-view bounds are independent given q(X) — a Python loop
+Structure: the per-view bounds are independent given q(X) — a Python loop
 emitting V independent Lm/LB factorizations that XLA schedules concurrently;
 gradients to all views' parameters and the shared q(X) come from one autodiff
 pass (GPy hand-stitches per-view gradient arrays, mrd.py ~250 lines of plumbing).

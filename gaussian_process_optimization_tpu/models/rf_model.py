@@ -4,7 +4,7 @@ The reference wraps sklearn's RandomForestRegressor with the predictive variance
 estimated as the mean over trees of (tree_prediction - forest_mean)^2 (rfmodel.py:
 predict). sklearn is not available in this image, so this is a self-contained numpy
 CART regression forest with the same variance convention. Host-side (tree induction
-is branchy integer work — not a TPU shape); predictions are vectorized numpy.
+is branchy integer work — not an accelerator shape); predictions are vectorized numpy.
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ Rebuild of GPy's sparse inference stack (SURVEY §2.1 'Sparse inference'):
   ``GPy/GPy/core/sparse_gp.py:14`` — predictive variable = Z :64; Z is trainable).
 
 All bounds are computed with the numerically standard Lm/LB factorization so the
-whole thing is three MXU matmuls + two small Cholesky factorizations; gradients
+whole thing is three matmuls + two small Cholesky factorizations; gradients
 (including dL/dZ) come from autodiff, replacing GPy's hand-derived gradient plumbing.
 Padding mask semantics match the exact GP: padded rows contribute nothing.
 """

@@ -5,7 +5,7 @@ Rebuild of GPy's SVGP (``GPy/GPy/core/svgp.py:11``,
 flat-packed Cholesky (ops/choleskies), ELBO = sum_n E_q[log p(y_n|f_n)] * (N/batch)
 - KL(q(u) || p(u)), optimized by minibatch Adam (the reference uses climin SGD slices).
 
-TPU-first: one jitted `svgp_step`; data parallelism across a mesh is a `psum` of the
+Accelerator-first: one jitted `svgp_step`; data parallelism across a mesh is a `psum` of the
 per-shard expected-likelihood term (see parallel/sharded.py) — the direct analog of
 the reference's MPI allreduce (``var_dtc_parallel.py`` reduceArrays).
 """

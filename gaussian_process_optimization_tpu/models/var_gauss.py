@@ -4,7 +4,7 @@ Rebuild of ``GPy/GPy/inference/latent_function_inference/var_gauss.py`` (69 LoC)
 q(f) = N(m, S) with the optimal structure m = K alpha, S = (K^-1 + diag(W))^-1;
 ELBO = E_q[log p(y|f)] - KL(q || N(0, K)), expectations by Gauss-Hermite.
 
-TPU-first: the free parameters (alpha, W) are optimized by the same jitted L-BFGS as
+Accelerator-first: the free parameters (alpha, W) are optimized by the same jitted L-BFGS as
 everything else; S's diagonal and the KL are computed from one Cholesky of
 B = I + W^1/2 K W^1/2 (no N x N inverse materialized).
 """

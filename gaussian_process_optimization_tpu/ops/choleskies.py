@@ -4,7 +4,7 @@ factors, used by SVGP's variational covariance parameterization.
 
 The reference's Cython `backprop_gradient` (reverse-mode Cholesky derivative,
 choleskies_cython.pyx:48-80) exists here as the custom VJP on ops.linalg.jitchol and
-as the standalone `backprop_gradient` below (two triangular solves on the MXU).
+as the standalone `backprop_gradient` below (two triangular solves).
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ Replaces scipy ``fmin_l_bfgs_b`` in both reference roles:
 
 Written as a pure ``lax.while_loop`` program so it jits once and ``vmap``s across
 restarts/anchor points — the multi-start loops that are serial Python in the reference
-become one batched TPU program. Line search is backtracking-Armijo (NaN-robust: a
+become one batched device program. Line search is backtracking-Armijo (NaN-robust: a
 non-finite trial objective just shrinks the step, which subsumes GPy's LinAlgError
 handling and GPyOpt's ABNORMAL_TERMINATION-returns-x0 fallback, optimizer.py:54-56).
 Box constraints are handled by gradient projection (iterates projected onto the box,
@@ -82,10 +82,9 @@ def _minimize(fun, x0, lower, upper, maxiter, history, tol,
         GP's Cholesky factor — are intermediates the primal materializes anyway;
         jax.tree_util.Partial makes the closure a while_loop-carryable pytree).
         The line search carries the ACCEPTED trial's vjp_fn out of the loop, so
-        the gradient at the accepted point is a backward pass only — measured on
-        TPU at N=4096 the old value_and_grad re-ran the 22.6 ms forward
-        (K build + Cholesky) inside the 74 ms vg on a point the line search had
-        just evaluated."""
+        the gradient at the accepted point is a backward pass only — a plain
+        value_and_grad would re-run the forward (K build + Cholesky) on a point
+        the line search had just evaluated."""
         if has_aux:
             f, vjp_fn, aux_out = jax.vjp(lambda xx: fun(xx, aux), x,
                                          has_aux=True)
@@ -191,8 +190,7 @@ def _minimize(fun, x0, lower, upper, maxiter, history, tol,
         # weighted running average C_k >= f_k, accepting mildly uphill trials.
         # Under vmap the restart batch pays the MAX trial count over lanes every
         # outer step, so cutting the backtrack tail is a direct per-step saving
-        # (the round-3 diagnosis: desynchronized per-lane backtracks ~20 ms/step,
-        # BASELINE.md). Convergence is preserved (Zhang & Hager 2004, thm 2.2);
+        # (desynchronized per-lane backtracks). Convergence is preserved (Zhang & Hager 2004, thm 2.2);
         # the best-seen (xb, fb) carry keeps the RETURNED iterate monotone.
         slack = 10.0 * jnp.finfo(dtype).eps * (1.0 + jnp.abs(fref))
         md = jnp.dot(g, d)  # directional derivative at t=0
@@ -292,8 +290,7 @@ def _minimize(fun, x0, lower, upper, maxiter, history, tol,
         # convergence drag). grow_backtracked=1.0 is the HOLD policy: after a
         # backtracked accept, re-probe at the accepted step instead of growing
         # into a likely re-rejection (kills the grow->fail->re-backtrack
-        # oscillation that costs ~0.5 trials/step on structured LML surfaces —
-        # BASELINE.md round-5 line-search study).
+        # oscillation that costs ~0.5 trials/step on structured LML surfaces).
         grow = jnp.where(n_trials == 1, 4.0, grow_backtracked)
         t_init = jnp.where(ls_ok, jnp.minimum(grow * t_acc, 1.0), 1.0)
 

@@ -4,15 +4,15 @@ The reference's distributed layer is optional MPI: ``GPy/GPy/core/sparse_gp_mpi.
 (scatter data, allreduce gradients) and
 ``GPy/GPy/inference/latent_function_inference/var_dtc_parallel.py`` (reduceArrays —
 partial sums of sufficient statistics across ranks), plus a multiprocessing objective
-fan-out (``GPyOpt/GPyOpt/core/task/objective.py:80``). TPU-native equivalent: ONE
-SPMD program over a device mesh with XLA collectives riding ICI —
+fan-out (``GPyOpt/GPyOpt/core/task/objective.py:80``). Equivalent here: ONE
+SPMD program over a device mesh with XLA collectives —
 
 - 'data' axis: training rows / candidate points sharded; per-shard sufficient
   statistics (A_i A_i^T, A_i y_i, |y_i|^2, traces) are psum-reduced — the exact
   analog of var_dtc_parallel's allreduce.
 - exact GP: the O(N^2 D) K build shards over row blocks (each device builds its
   rows against full X); the Cholesky consumes the gathered Gram. For N past one
-  chip's HBM the supported scaling path is the sparse/SVGP bound whose per-device
+  device's memory the supported scaling path is the sparse/SVGP bound whose per-device
   work is O(N_shard M^2) with an M x M psum — the same scaling axes the reference
   uses (SURVEY §5 'long-context analog').
 """
@@ -30,9 +30,7 @@ from ..config import config
 from ..models.gp import LOG_2_PI
 from ..ops import linalg
 
-shard_map = jax.shard_map if hasattr(jax, "shard_map") else None
-if shard_map is None:  # pragma: no cover - older jax fallback
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 
 def make_mesh(n_devices=None, axis_names=("data",)):
@@ -161,7 +159,7 @@ def make_distributed_cholesky(mesh, nb=256):
     sparse sufficient-stats allreduce (GPy var_dtc_parallel.py reduceArrays);
     its dense path is one host's LAPACK potrf (GPy/util/linalg.py:56). Here the
     N^2 Gram memory and the N^3/3 trailing-update FLOPs both scale with the
-    mesh; per-panel comms are one (N, nb) all_gather riding ICI.
+    mesh; per-panel comms are one (N, nb) all_gather.
 
     Returns chol_fn(A) -> L for a GLOBAL (n, n) array laid out (or to be laid
     out) with rows sharded P('data', None); n must be a multiple of
@@ -181,8 +179,7 @@ def make_distributed_cholesky(mesh, nb=256):
 def make_distributed_exact_lml(mesh, nb=256):
     """Exact-GP log marginal likelihood with the Gram build, the Cholesky, and
     the logdet ALL row-sharded — per-device peak memory ~ N^2/P + 2*N*nb, so
-    exact GP scales past one chip's HBM (VERDICT r4 #3; BASELINE.md 'Distributed
-    exact GP' for the max-N math).
+    exact GP scales past one device's memory.
 
     Returns lml(kern, X, Y, noise) -> scalar (replicated). X (n, d) and Y
     (n, p) are replicated (they are O(N d) — small); n must be a multiple of

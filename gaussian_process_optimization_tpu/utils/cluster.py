@@ -9,7 +9,7 @@ the two series with a trainable per-series input offset (our
 and the reference's N(0, 20) prior on the offset
 (``cluster_with_offset.py:84``).
 
-TPU-first redesign: the reference optimizes O(K^2) GPy models SERIALLY, one
+Accelerator-first redesign: the reference optimizes O(K^2) GPy models SERIALLY, one
 ``m.optimize()`` per candidate pair, each at its own ragged size. Here every
 candidate is right-padded to one fixed row budget (mask-aware LML — padded
 rows become identity rows before the Cholesky, ``ops/linalg.py masked_gram``),

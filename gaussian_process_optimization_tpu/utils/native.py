@@ -47,7 +47,7 @@ def get_lib():
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if os.environ.get("GPO_TPU_NO_NATIVE"):
+    if os.environ.get("GPO_NO_NATIVE"):
         return None
     lib_path = _build()
     if lib_path is None:
@@ -87,7 +87,7 @@ def _require_lib():
     lib = get_lib()
     if lib is None:
         raise RuntimeError(
-            "native engine unavailable (no compiler or GPO_TPU_NO_NATIVE set); "
+            "native engine unavailable (no compiler or GPO_NO_NATIVE set); "
             "check utils.native.available() and use the numpy fallbacks in "
             "bo/designs.py")
     return lib

@@ -154,7 +154,7 @@ class MultivariateGaussianPrior(Prior):
 
 def _class_scatter(x, lbl):
     """Vectorized between/within class scatter (the loops of priors.py:566-631
-    as one-hot contractions — MXU-friendly; empty classes contribute zero).
+    as one-hot contractions — matmul-friendly; empty classes contribute zero).
 
     Returns (Sb, Sw) with the reference's N-normalized weighting:
     Sb = sum_i (N_i/N) (M_i-M_0)(M_i-M_0)^T, Sw = (1/N) sum_j (x_j-M_c(j))(.)^T.

@@ -1,7 +1,7 @@
 """Pytree-dataclass helpers.
 
 The reference builds its models on the `paramz` observer/Param machinery
-(``GPy/GPy/core/parameterization/``). The TPU-native replacement is a functional design:
+(``GPy/GPy/core/parameterization/``). The JAX-native replacement is a functional design:
 models and kernels are immutable frozen dataclasses registered as JAX pytrees; parameters
 are ordinary array leaves, so `jax.grad`/`vmap`/`jit` traverse them directly and there is
 no observer pattern or caching layer (XLA CSE plays that role).

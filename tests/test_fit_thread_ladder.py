@@ -7,7 +7,7 @@ policy the BO wrappers apply across refits, bo_models.updateModel). Guards:
   GPy's fresh sequential ladder, util/linalg.py:56-74);
 - ladder-climbing data: the threaded fit reaches the same optima and the aux
   records the climbed rungs;
-- default OFF (round-5 TPU A/B verdict — BASELINE.md), GPRegression-only.
+- default OFF (an A/B found no win on the bench workload), GPRegression-only.
 """
 import jax
 import jax.numpy as jnp
@@ -80,7 +80,7 @@ def test_threaded_fit_on_ladder_climbing_surface():
 
 
 def test_default_off_and_gpregression_only():
-    # default OFF (round-5 A/B: no win on the bench workload — BASELINE.md);
+    # default OFF (an A/B found no win on the bench workload);
     # explicit True applies to exact GPRegression only (the hint fields live
     # on it), and is ignored for models without the ladder-hint channel
     X, Y = _toy()

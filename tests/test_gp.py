@@ -49,7 +49,7 @@ def test_lml_and_predict_match_numpy(toy):
     lml = float(m.log_marginal_likelihood())
     mu, v = m.predict(jnp.asarray(Xs))
     lml_np, mu_np, v_np = _numpy_gp(X, Y, Xs, var, ls, noise)
-    # tolerance: our pairwise distances use the -2XX^T+|X|^2 matmul trick (MXU path),
+    # tolerance: our pairwise distances use the -2XX^T+|X|^2 matmul trick,
     # numpy uses direct (A-B)^2 — agreement is limited by that cancellation (~1e-7)
     np.testing.assert_allclose(lml, lml_np, rtol=1e-6)
     np.testing.assert_allclose(np.asarray(mu), mu_np, rtol=1e-6, atol=1e-8)
